@@ -23,11 +23,11 @@ jax.config.update(
 )
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
-from rust_raytracer_tpu.core import rng as vrng  # noqa: E402
-from rust_raytracer_tpu.render import integrator  # noqa: E402
-from rust_raytracer_tpu.render.camera import Camera  # noqa: E402
-from rust_raytracer_tpu.scene import compiler as sc  # noqa: E402
-from rust_raytracer_tpu.scene import graph as g  # noqa: E402
+from rust_raytracer_jax.core import rng as vrng  # noqa: E402
+from rust_raytracer_jax.render import integrator  # noqa: E402
+from rust_raytracer_jax.render.camera import Camera  # noqa: E402
+from rust_raytracer_jax.scene import compiler as sc  # noqa: E402
+from rust_raytracer_jax.scene import graph as g  # noqa: E402
 
 DEPTH = 3
 N = 256  # 16x16 pixels x 1 spp

@@ -5,9 +5,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from rust_raytracer_tpu.scene import graph as g
-from rust_raytracer_tpu.scene import compiler as sc
-from rust_raytracer_tpu.ops import intersect as isect
+from rust_raytracer_jax.scene import graph as g
+from rust_raytracer_jax.scene import compiler as sc
+from rust_raytracer_jax.ops import intersect as isect
 
 
 def _random_mesh(n_tris=300, seed=3):

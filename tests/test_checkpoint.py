@@ -4,11 +4,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from rust_raytracer_tpu import models
-from rust_raytracer_tpu.render import checkpoint as ckpt
-from rust_raytracer_tpu.render import pool as poolmod
-from rust_raytracer_tpu.render.camera import Camera
-from rust_raytracer_tpu.scene import compiler as sc
+from rust_raytracer_jax import models
+from rust_raytracer_jax.render import checkpoint as ckpt
+from rust_raytracer_jax.render import pool as poolmod
+from rust_raytracer_jax.render.camera import Camera
+from rust_raytracer_jax.scene import compiler as sc
 
 SPP = 4
 LANES = 1024

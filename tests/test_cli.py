@@ -8,7 +8,7 @@ import os
 import numpy as np
 import pytest
 
-from rust_raytracer_tpu.utils import cli
+from rust_raytracer_jax.utils import cli
 
 
 def test_cli_renders_builtin_scene(tmp_path, capsys):

@@ -107,7 +107,7 @@ def dae_path(tmp_path_factory):
 
 
 def test_collada_parse(dae_path):
-    from rust_raytracer_tpu.utils import collada
+    from rust_raytracer_jax.utils import collada
 
     gs = collada.load(dae_path)
     assert len(gs.instances) == 2
@@ -149,8 +149,8 @@ def test_collada_scene_assembly(dae_path):
     """model:path.dae -> SceneDef through the shared assembly: meshes
     with baked transforms, emissive mesh -> Emissive material + proxy
     light, camera -> config."""
-    from rust_raytracer_tpu.scene import graph as g
-    from rust_raytracer_tpu.utils import model_import
+    from rust_raytracer_jax.scene import graph as g
+    from rust_raytracer_jax.utils import model_import
 
     sd = model_import.load_model(dae_path)
     meshes = [o for o in sd.world.items if isinstance(o, g.Mesh)]

@@ -7,7 +7,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from rust_raytracer_tpu.core import math as m
+from rust_raytracer_jax.core import math as m
 
 
 RNG = np.random.default_rng(0)

@@ -6,8 +6,8 @@ import os
 import numpy as np
 import pytest
 
-from rust_raytracer_tpu.scene import compiler as sc
-from rust_raytracer_tpu.scene import dsl
+from rust_raytracer_jax.scene import compiler as sc
+from rust_raytracer_jax.scene import dsl
 
 SCENES_DIR = os.environ.get("RRT_SCENES_ROOT", "/root/reference/scenes")
 
@@ -52,8 +52,40 @@ def test_load_reference_scene(name):
     assert len(static.light_list) > 0
 
 
+# The reference's scenes/cornell, inlined so the test checks the parser
+# rather than a mounted file.
+CORNELL_DSL = """
+@config output_width = 600
+@config aspect_ratio = 1/1
+@config focal_length = 33
+@config camera_pos = 277.5,277.5,-800
+@config camera_target = 277.5,277.5,0
+
+white: lambertian (constant 0.73,0.73,0.73)
+green: lambertian (constant 0.12,0.45,0.15)
+red: lambertian (constant 0.65,0.05,0.05)
+light: emissive (constant 15,15,15)
+glass: glass 1.5
+floor_rough: checker (constant 0) (constant 1) 0.25
+floor_mat: glossy (constant 0.95,0.95,0.95) $floor_rough 1.5
+
+floor: plane 277.5,0,277.5 277.5,0,0 0,0,-277.5 $floor_mat
+ceiling: plane 277.5,555,277.5 277.5,0,0 0,0,277.5 $white
+back: plane 277.5,277.5,555 0,277.5,0 277.5,0,0 $white
+left: plane 555,277.5,277.5 0,277.5,0 0,0,-277.5 $green
+right: plane 0,277.5,277.5 0,277.5,0 0,0,277.5 $red
+lamp: plane 277.5,554.9,277.5 -65,0,0 0,0,-52.5 $light backface
+box: box 0,0,0 165,330,165 $white
+box: transform $box t=82.5,165,82.5 ry=18 t=265,0,295
+ball: sphere 212.5,82.51,147.5 82.5 $glass
+
+world: list $floor $ceiling $back $left $right $lamp $box $ball
+lights: list $lamp $ball
+"""
+
+
 def test_cornell_structure():
-    scene = dsl.load_scene_file(os.path.join(SCENES_DIR, "cornell"))
+    scene = dsl.SceneLoader().load(CORNELL_DSL)
     pack, static = sc.compile_scene(scene)
     # 6 walls/floor/ceiling/back + light + 6 box planes = 12 planes, 1 sphere
     assert pack.pln_corner.shape[0] == 12

@@ -15,9 +15,9 @@ import zlib
 import numpy as np
 import pytest
 
-from rust_raytracer_tpu.scene import compiler as sc
-from rust_raytracer_tpu.scene import graph as g
-from rust_raytracer_tpu.utils import fbx, model_import
+from rust_raytracer_jax.scene import compiler as sc
+from rust_raytracer_jax.scene import graph as g
+from rust_raytracer_jax.utils import fbx, model_import
 
 _REF_FBX = "/root/reference/models/test.fbx"
 _REF_GLB = "/root/reference/models/test.glb"
@@ -217,7 +217,7 @@ def test_fixture_scene_compiles(tmp_path):
 def test_reference_fbx_matches_glb_twin():
     """models/test.fbx and models/test.glb are the same Blender scene
     exported twice; the FBX (cm units) must agree with the glb x100."""
-    from rust_raytracer_tpu.utils import gltf
+    from rust_raytracer_jax.utils import gltf
 
     fs = fbx.load(_REF_FBX)
     gs = gltf.load(_REF_GLB)

@@ -15,10 +15,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from rust_raytracer_tpu.scene import compiler as sc
-from rust_raytracer_tpu.scene import graph as g
-from rust_raytracer_tpu.scene import pack as sp
-from rust_raytracer_tpu.utils import model_import
+from rust_raytracer_jax.scene import compiler as sc
+from rust_raytracer_jax.scene import graph as g
+from rust_raytracer_jax.scene import pack as sp
+from rust_raytracer_jax.utils import model_import
 
 
 def _build_glb(path):
@@ -171,10 +171,10 @@ def test_gltf_compiles_with_proxy_light_and_renders(glb_scene):
     assert pack.lgt_sph_center.shape[0] == 1
     assert pack.tri_v0.shape[0] >= 4
 
-    from rust_raytracer_tpu.core import rng as vrng
-    from rust_raytracer_tpu.render import integrator
-    from rust_raytracer_tpu.render.camera import Camera
-    from rust_raytracer_tpu.utils import config as cfgmod
+    from rust_raytracer_jax.core import rng as vrng
+    from rust_raytracer_jax.render import integrator
+    from rust_raytracer_jax.render.camera import Camera
+    from rust_raytracer_jax.utils import config as cfgmod
 
     cam = cfgmod.make_camera(
         cfgmod.merge_scene_config(glb_scene.config, {"output_width": 8}),

@@ -34,9 +34,9 @@ def _blur3(img):
 def test_light_test_matches_reference_render():
     from PIL import Image
 
-    from rust_raytracer_tpu import models
-    from rust_raytracer_tpu.render.renderer import Renderer
-    from rust_raytracer_tpu.utils import config as cfg
+    from rust_raytracer_jax import models
+    from rust_raytracer_jax.render.renderer import Renderer
+    from rust_raytracer_jax.utils import config as cfg
 
     scene = models.build("light_test")
     sc_cfg = cfg.merge_scene_config(scene.config, {"output_width": 80})
@@ -83,9 +83,9 @@ def test_golden_monkey_matches_reference_render():
     regressions, or a broken tonemap chain."""
     from PIL import Image
 
-    from rust_raytracer_tpu import models
-    from rust_raytracer_tpu.render.renderer import Renderer
-    from rust_raytracer_tpu.utils import config as cfg
+    from rust_raytracer_jax import models
+    from rust_raytracer_jax.render.renderer import Renderer
+    from rust_raytracer_jax.utils import config as cfg
 
     scene = models.build("golden_monkey")
     sc_cfg = cfg.merge_scene_config(scene.config, {"output_width": 72})
@@ -118,9 +118,9 @@ def test_cornell_matches_stored_golden():
     counter-based RNG makes the render deterministic, so the tolerance is
     tight — any change to NEE weights, material sampling, RNG streams or
     tonemapping moves this image."""
-    from rust_raytracer_tpu import models
-    from rust_raytracer_tpu.render.renderer import Renderer
-    from rust_raytracer_tpu.utils import config as cfg
+    from rust_raytracer_jax import models
+    from rust_raytracer_jax.render.renderer import Renderer
+    from rust_raytracer_jax.utils import config as cfg
 
     golden_path = os.path.join(_HERE, "golden", "cornell_64.npy")
     scene = models.build("cornell")

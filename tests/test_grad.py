@@ -76,3 +76,41 @@ def test_grad_material_texture_constants(fd_results):
 def test_gradients_nontrivial(fd_results):
     mags = [abs(r["analytic"]) for r in fd_results]
     assert max(mags) > 1e-3, "all probed gradients ~0 — probe is vacuous"
+
+
+@pytest.mark.parametrize("scene_name", ["cornell", "test"])
+def test_grads_finite_when_lanes_miss(scene_name):
+    """Lanes that miss everything (camera corners outside the Cornell box)
+    must not NaN the gradients: their masked-out shading terms still enter
+    reverse mode as 0 * value, so every value has to stay finite."""
+    import jax
+    import jax.numpy as jnp
+
+    from rust_raytracer_jax import models
+    from rust_raytracer_jax.core import rng as vrng
+    from rust_raytracer_jax.render import integrator
+    from rust_raytracer_jax.scene import compiler as sc
+    from rust_raytracer_jax.utils import config as cfg
+
+    scene = models.build(scene_name)
+    cam = cfg.make_camera(
+        cfg.merge_scene_config(scene.config, {"output_width": 12}),
+        cfg.RenderConfig(samples_per_pixel=1, max_depth=2))
+    pack, static = sc.compile_scene(scene)
+    n = cam.image_width * cam.image_height
+    px = jnp.arange(n, dtype=jnp.uint32) % cam.image_width
+    py = jnp.arange(n, dtype=jnp.uint32) // cam.image_width
+    smp = jnp.zeros((n,), jnp.uint32)
+
+    def loss(p):
+        ctx = vrng.Ctx(pixel=py * cam.image_width + px, sample=smp,
+                       bounce=jnp.uint32(0), seed=jnp.uint32(0))
+        org, dirn = cam.generate_rays(px, py, smp, ctx)
+        rad = integrator.trace(p, static, org, dirn, ctx, 2, cam.light_bias,
+                               differentiable=True)
+        return jnp.mean(rad ** 2)
+
+    grads = jax.jit(jax.grad(loss, allow_int=True))(pack)
+    for leaf in jax.tree_util.tree_leaves(grads):
+        if leaf.dtype.kind == "f":
+            assert np.isfinite(np.asarray(leaf)).all()

@@ -28,7 +28,7 @@ jax.config.update("jax_platforms", "cpu")
 proc_id = int(sys.argv[1])
 coord = sys.argv[2]
 
-from rust_raytracer_tpu.parallel import mesh as pmesh
+from rust_raytracer_jax.parallel import mesh as pmesh
 pmesh.init_multihost(coord, num_processes=2, process_id=proc_id,
                      local_device_count=2)
 
@@ -36,11 +36,11 @@ import numpy as np
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
-from rust_raytracer_tpu import models
-from rust_raytracer_tpu.core import rng as vrng
-from rust_raytracer_tpu.render import integrator
-from rust_raytracer_tpu.render.camera import Camera
-from rust_raytracer_tpu.scene import compiler as sc
+from rust_raytracer_jax import models
+from rust_raytracer_jax.core import rng as vrng
+from rust_raytracer_jax.render import integrator
+from rust_raytracer_jax.render.camera import Camera
+from rust_raytracer_jax.scene import compiler as sc
 
 assert jax.device_count() == 4 and jax.process_count() == 2
 
@@ -130,11 +130,11 @@ def test_two_process_mesh_matches_single_process():
     import jax
     import jax.numpy as jnp
 
-    from rust_raytracer_tpu import models
-    from rust_raytracer_tpu.core import rng as vrng
-    from rust_raytracer_tpu.render import integrator
-    from rust_raytracer_tpu.render.camera import Camera
-    from rust_raytracer_tpu.scene import compiler as sc
+    from rust_raytracer_jax import models
+    from rust_raytracer_jax.core import rng as vrng
+    from rust_raytracer_jax.render import integrator
+    from rust_raytracer_jax.render.camera import Camera
+    from rust_raytracer_jax.scene import compiler as sc
 
     scene = models.build("test")
     cam = Camera(image_width=16, aspect_ratio=1.0, samples_per_pixel=1,

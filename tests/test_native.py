@@ -5,9 +5,9 @@ import os
 import numpy as np
 import pytest
 
-from rust_raytracer_tpu import native
-from rust_raytracer_tpu.scene import bvh_builder
-from rust_raytracer_tpu.utils import assets
+from rust_raytracer_jax import native
+from rust_raytracer_jax.scene import bvh_builder
+from rust_raytracer_jax.utils import assets
 
 MONKEY = os.path.join(
     os.environ.get("RRT_ASSET_ROOT", "/root/reference/scenes"),

@@ -4,9 +4,9 @@ reorder tolerance."""
 import numpy as np
 import pytest
 
-from rust_raytracer_tpu import models
-from rust_raytracer_tpu.render.camera import Camera
-from rust_raytracer_tpu.render.renderer import Renderer
+from rust_raytracer_jax import models
+from rust_raytracer_jax.render.camera import Camera
+from rust_raytracer_jax.render.renderer import Renderer
 
 
 @pytest.mark.parametrize("scene_name", ["test"])

@@ -8,10 +8,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from rust_raytracer_tpu.core import rng as vrng
-from rust_raytracer_tpu.scene import graph as g
-from rust_raytracer_tpu.scene import compiler as sc
-from rust_raytracer_tpu.render import integrator
+from rust_raytracer_jax.core import rng as vrng
+from rust_raytracer_jax.scene import graph as g
+from rust_raytracer_jax.scene import compiler as sc
+from rust_raytracer_jax.render import integrator
 
 
 def _trace_rays(scene, org, dirn, max_depth=8, light_bias=0.25, seed=0):

@@ -3,9 +3,9 @@ radiometric structure (sky brightness, floor/ball reflectance bounds)."""
 import numpy as np
 import pytest
 
-from rust_raytracer_tpu import models
-from rust_raytracer_tpu.render.camera import Camera
-from rust_raytracer_tpu.render.renderer import Renderer
+from rust_raytracer_jax import models
+from rust_raytracer_jax.render.camera import Camera
+from rust_raytracer_jax.render.renderer import Renderer
 
 
 @pytest.fixture(scope="module")
@@ -67,3 +67,53 @@ def test_ppm_p3_writer(test_film, tmp_path):
     r, g, b = (min(max(float(x), 0.0) ** (1 / 2.2), 1.0) * 255.999
                for x in hdr[0, 0])
     assert body[0] == f"{int(r)} {int(g)} {int(b)}"
+
+
+def test_aces_matches_float64_oracle():
+    """ACES (reference aces.rs:27-33) against NumPy float64: the two 3x3
+    colour maps must hold full f32 precision (no TF32 products)."""
+    import jax.numpy as jnp
+
+    from rust_raytracer_jax.ops import tonemap as tm
+
+    c = np.random.default_rng(3).uniform(0.0, 4.0, (4096, 3))
+    m_in = np.asarray(tm._ACES_INPUT, np.float64)
+    m_out = np.asarray(tm._ACES_OUTPUT, np.float64)
+    v = c @ m_in.T
+    v = (v * (v + 0.0245786) - 0.000090537) / (
+        v * (v * 0.983729 + 0.4329510) + 0.238081)
+    expect = np.clip(v @ m_out.T, 0.0, 1.0)
+    got = np.asarray(tm.tonemap_aces(jnp.asarray(c, jnp.float32)))
+    np.testing.assert_allclose(got, expect, atol=2e-6)
+
+
+def test_png_writer_round_trip(tmp_path):
+    """Film.save writes a valid 8-bit RGB PNG with the standard library:
+    signature, IHDR, CRCs, and the exact tonemapped pixels back."""
+    import struct
+    import zlib
+
+    from rust_raytracer_jax.render.film import Film
+
+    film = Film(5, 3)
+    rad = np.random.default_rng(1).uniform(0, 2, (3, 5, 3))
+    film.add_samples(rad, 1)
+    path = str(tmp_path / "f.png")
+    film.save(path)
+    data = open(path, "rb").read()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    pos, chunks = 8, {}
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
+        (crc,) = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])
+        assert crc == zlib.crc32(tag + body) & 0xFFFFFFFF
+        chunks[tag] = body
+        pos += 12 + length
+    assert set(chunks) == {b"IHDR", b"IDAT", b"IEND"}
+    assert struct.unpack(">IIBBBBB", chunks[b"IHDR"]) == (5, 3, 8, 2, 0, 0, 0)
+    raw = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8)
+    raw = raw.reshape(3, 1 + 5 * 3)
+    assert (raw[:, 0] == 0).all()  # filter type 0 on every row
+    np.testing.assert_array_equal(raw[:, 1:].reshape(3, 5, 3),
+                                  film.to_image())

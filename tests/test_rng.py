@@ -2,7 +2,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from rust_raytracer_tpu.core import rng
+from rust_raytracer_jax.core import rng
 
 
 def test_determinism_and_independence():

@@ -11,10 +11,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from rust_raytracer_tpu import models
-from rust_raytracer_tpu.render.camera import Camera
-from rust_raytracer_tpu.render.renderer import Renderer
-from rust_raytracer_tpu.parallel import mesh as pmesh
+from rust_raytracer_jax import models
+from rust_raytracer_jax.render.camera import Camera
+from rust_raytracer_jax.render.renderer import Renderer
+from rust_raytracer_jax.parallel import mesh as pmesh
 
 BATCH = 64 * 42 * 4
 
@@ -48,8 +48,8 @@ def test_pool_render_1_vs_8_devices():
     RNG); only the per-pixel fp summation order differs across meshes, so
     the comparison is allclose at f32 tolerance, and the issued-job count
     must match exactly."""
-    from rust_raytracer_tpu.render import pool as poolmod
-    from rust_raytracer_tpu.scene import compiler as sc
+    from rust_raytracer_jax.render import pool as poolmod
+    from rust_raytracer_jax.scene import compiler as sc
 
     scene = models.build("test")
     cam = Camera(
@@ -76,9 +76,9 @@ def test_train_step_loss_and_grads_match_across_meshes():
         image_width=32, aspect_ratio=1.0, samples_per_pixel=1, max_depth=3,
         position=(0, 0, 1), look_at=(0, 0, 0), focal_length=50.0,
     )
-    from rust_raytracer_tpu.core import rng as vrng
-    from rust_raytracer_tpu.render import integrator
-    from rust_raytracer_tpu.scene import compiler as sc
+    from rust_raytracer_jax.core import rng as vrng
+    from rust_raytracer_jax.render import integrator
+    from rust_raytracer_jax.scene import compiler as sc
 
     pack, static = sc.compile_scene(scene)
     w = cam.image_width
@@ -116,3 +116,12 @@ def test_train_step_loss_and_grads_match_across_meshes():
     assert len(g1) == len(g8) and len(g1) > 0
     for a, b in zip(g1, g8):
         np.testing.assert_allclose(b / 8.0, a, rtol=1e-5, atol=1e-7)
+
+
+def test_make_mesh_raises_when_devices_are_too_few():
+    """A mesh never moves to another platform behind the caller: asking
+    for more devices than the default backend has raises."""
+    n = len(jax.devices())
+    assert pmesh.make_mesh(n).devices.size == n
+    with pytest.raises(ValueError, match="devices"):
+        pmesh.make_mesh(n + 1)

@@ -12,11 +12,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from rust_raytracer_tpu.core import rng as vrng
-from rust_raytracer_tpu.ops import intersect as isect
-from rust_raytracer_tpu.scene import compiler as sc
-from rust_raytracer_tpu.scene import graph as g
-from rust_raytracer_tpu.scene import pack as sp
+from rust_raytracer_jax.core import rng as vrng
+from rust_raytracer_jax.ops import intersect as isect
+from rust_raytracer_jax.scene import compiler as sc
+from rust_raytracer_jax.scene import graph as g
+from rust_raytracer_jax.scene import pack as sp
 
 MAT = g.Lambertian(g.Constant((0.5, 0.5, 0.5)))
 
@@ -129,6 +129,47 @@ def test_ellipsoid_sphere_matches_quadric_oracle():
     d_h = np.asarray(dirn)[hits]
     expect = np.where((np.sum(d_h * expect, -1) < 0)[:, None], expect, -expect)
     np.testing.assert_allclose(nrm, expect, atol=2e-4)
+
+
+def test_many_ellipsoids_match_quadric_oracle():
+    """More than 16 ellipsoids take the chunked (N, C) scan; its 3x3 maps
+    must hold full f32 precision (a TF32 product would miss the rtol)."""
+    r = np.random.default_rng(5)
+    mats, spheres = [], []
+    for k in range(20):
+        m = np.eye(4)
+        m[:3, :3] = r.normal(0, 0.3, (3, 3)) + np.diag(r.uniform(0.5, 1.5, 3))
+        m[:3, 3] = r.uniform(-1.5, 1.5, 3)
+        mats.append(m)
+        spheres.append(g.Transform(g.Sphere((0.0, 0.0, 0.0), 0.4, MAT),
+                                   matrix=m.copy()))
+    pack, _ = sc.compile_scene(g.SceneDef(world=g.Group(spheres), lights=[]))
+    assert pack.sph_inv.shape[0] == 20  # ellipsoid path, chunked scan
+
+    n = 512
+    org, dirn = _rays(n, seed=8, spread=1.2)
+    t = np.asarray(isect.intersect(pack, org, dirn, 1e-3, _ctx(n),
+                                   kernel="jnp").t)
+
+    o = np.asarray(org, np.float64)
+    d = np.asarray(dirn, np.float64)
+    t_oracle = np.full(n, np.inf)
+    for m in mats:
+        A = np.linalg.inv(m[:3, :3] * 0.4)
+        o_l = (o - m[:3, 3]) @ A.T
+        d_l = d @ A.T
+        a = np.sum(d_l * d_l, -1)
+        hb = np.sum(d_l * o_l, -1)
+        disc = hb * hb - a * (np.sum(o_l * o_l, -1) - 1.0)
+        sq = np.sqrt(np.maximum(disc, 0))
+        r1, r2 = (-hb - sq) / a, (-hb + sq) / a
+        tk = np.where((disc > 0) & (r1 > 1e-3), r1,
+                      np.where((disc > 0) & (r2 > 1e-3), r2, np.inf))
+        t_oracle = np.minimum(t_oracle, tk)
+    np.testing.assert_array_equal(np.isfinite(t), np.isfinite(t_oracle))
+    hits = np.isfinite(t)
+    assert hits.sum() > 100
+    np.testing.assert_allclose(t[hits], t_oracle[hits], rtol=2e-4, atol=1e-5)
 
 
 def test_mesh_volume_boundary_matches_box_analytic():
